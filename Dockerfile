@@ -4,9 +4,9 @@
 #
 # Two-stage build: the builder compiles the native store (libtructstore.so)
 # and installs the package; the runtime stage carries only the venv. The
-# default backend runs JAX on CPU — on TPU VMs, base this on a TPU runtime
-# image (or pip install the libtpu release) and the same entrypoint serves
-# from the accelerator; nothing else changes.
+# default backend runs JAX on CPU — on a GPU host, base this on a CUDA
+# runtime image with JAX's CUDA plugin and the same entrypoint serves from
+# the card; nothing else changes.
 
 FROM python:3.12-slim AS builder
 

@@ -3,7 +3,7 @@ Measured HNSW baseline for the "vs usearch" comparison (BASELINE.md).
 
 The reference's engine (iscc-usearch, a patched unum-cloud/usearch C++ HNSW)
 is not installable in this environment, so the north-star comparison cannot
-be run directly. This script provides the honest substitute BENCH_DETAILS
+be run directly. This script provides the honest substitute the comparison
 links to:
 
 1. A real HNSW (numpy-vectorized distances, standard insert/search with an
@@ -16,7 +16,7 @@ links to:
    working set far beyond LLC at 10M). Native single-core QPS estimate =
    1 / (evals(10M) x ns_per_eval). Both bounds are reported.
 
-Run: PYTHONPATH=. python benchmarks/hnsw_baseline.py   (CPU-only, no TPU)
+Run: PYTHONPATH=. python benchmarks/hnsw_baseline.py   (CPU only)
 Writes benchmarks/HNSW_BASELINE.json.
 """
 
@@ -200,7 +200,7 @@ def main():
             "ef_sweep": sweeps,
         },
         "native_hnsw_estimate_at_10m": native,
-        "note": "usearch/iscc-usearch is not installable here (BENCH_DETAILS links "
+        "note": "usearch/iscc-usearch is not installable here (the comparison links "
         "this file as the measured+modeled stand-in for the BASELINE.md north star)",
     }
     Path(__file__).with_name("HNSW_BASELINE.json").write_text(json.dumps(out, indent=2))

@@ -98,7 +98,7 @@ def serve(flavor):
         workers = [
             subprocess.Popen(
                 [sys.executable, __file__, "--serve", "scaleout-worker"],
-                env={**os.environ, "ISCC_STACK_SOCK": sock_path},
+                env={**os.environ, "ISCC_STACK_SOCK": sock_path, "JAX_PLATFORMS": "cpu"},
             )
             for _ in range(int(os.environ.get("ISCC_STACK_WORKERS", "4")))
         ]
@@ -195,7 +195,8 @@ def client_loop(n_reqs, keepalive, counts, idx):
 
 
 def load(flavor, clients=16, n_per_client=2000, keepalive=True):
-    proc = subprocess.Popen([sys.executable, __file__, "--serve", flavor])
+    # The stub servers own no index: keep them off the card.
+    proc = subprocess.Popen([sys.executable, __file__, "--serve", flavor], env={**os.environ, "JAX_PLATFORMS": "cpu"})
     try:
         for _ in range(100):
             try:

@@ -22,7 +22,7 @@ from iscc_search_tpu.cli.serve import serve_command
 
 @click.group(context_settings={"help_option_names": ["-h", "--help"]})
 def cli():
-    """ISCC-Search TPU — similarity search for ISCC codes on accelerators."""
+    """ISCC-Search — similarity search for ISCC codes on accelerators."""
     from iscc_search_tpu.utils import configure_logging
 
     configure_logging()  # entry point opts in; the library never does on import

@@ -11,7 +11,7 @@ extra latency (first caller in a batch triggers immediate collection, so the
 idle-server fast path adds ~zero).
 
 This replaces the reference's thread-per-request → HNSW-per-query model with
-the TPU-appropriate shape (SURVEY §2.3 thread concurrency row).
+the accelerator-appropriate shape (SURVEY §2.3 thread concurrency row).
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """
-TPU-backed single index — the flagship engine.
+Device-backed single index — the flagship engine.
 
 Functional twin of the reference's usearch backend (UsearchIndex,
-iscc_search/indexes/usearch/index.py) re-architected for the TPU scan engine:
+iscc_search/indexes/usearch/index.py) re-architected for the device scan engine:
 
 - Source of truth: native HostStore (assets, metadata, INSTANCE dupsort,
   per-type simprint data) — mirrors the LMDB-is-truth consistency model
@@ -92,7 +92,7 @@ def _spi_db(sp_type):
 
 
 class TpuIndex:
-    """Single TPU-scan index over a HostStore source of truth."""
+    """Single device-scan index over a HostStore source of truth."""
 
     SP_FINGERPRINT_BYTES = 16
 
@@ -1103,7 +1103,6 @@ class TpuIndex:
             max_dim=self.max_dim,
             shard_size=self._opts.shard_size_units * 1024 * 1024,
             recall_target=self._opts.scan_recall_target,
-            scan_kernel=self._opts.scan_kernel,
             mesh=self._device_mesh(),
         )
 

@@ -1,5 +1,5 @@
 """
-TPU index manager — multi-index protocol implementation.
+Device index manager — multi-index protocol implementation.
 
 Directory-per-index layout with a lock-guarded instance cache and
 per-component size accounting, functional twin of the reference's
@@ -27,7 +27,7 @@ logger = get_logger(__name__)
 
 
 class TpuIndexManager:
-    """Protocol implementation managing multiple TPU-scan indexes."""
+    """Protocol implementation managing multiple device-scan indexes."""
 
     def __init__(self, base_path, max_dim=256):
         # type: (str | Path, int) -> None

@@ -1,7 +1,7 @@
 // hnsw_evalbench — measure (not assume) the per-distance-evaluation cost of a
 // native HNSW over 256-bit binary codes at 10M-node scale on THIS host.
 //
-// Replaces the assumed 50–150 ns/eval constant in benchmarks/HNSW_BASELINE.json
+// Replaces an assumed 50–150 ns/eval constant in the HNSW baseline estimate
 // (see that file's "native_hnsw_estimate_at_10m"). The modeled workload matches
 // what usearch's layer-0 traversal does per hop (reference behavior surveyed at
 // /root/reference/iscc_search/indexes/usearch/index.py:2024-2045 — HNSW NPHD

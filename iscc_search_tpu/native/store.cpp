@@ -1,7 +1,7 @@
 // tructstore — crash-safe KV store with append-only log persistence and
 // disk-resident large values.
 //
-// Native host-side storage for the TPU search engine, replacing the role LMDB
+// Native host-side storage for the device search engine, replacing the role LMDB
 // plays in the reference design (source-of-truth asset store, exact-match
 // dupsort databases, metadata). Design goals mirror the reference's
 // consistency model (SURVEY §5: LMDB commits per batch; derived device
@@ -1102,7 +1102,7 @@ int ts_sync(void* h) {
 
 // Incremental compaction: bounded write stalls instead of a full-store
 // pause (a 1M-asset aggregator store measured a 15.5s ingest stall on the
-// old full-lock path — benchmarks/AGGREGATOR_INGEST.json).
+// old full-lock path, measured by benchmarks/aggregator_ingest.py).
 //
 //   Phase A (exclusive, O(entries) pointer walk, no I/O): flush the write
 //     buffer, rotate store.log -> store.log.0 (the old read fd keeps serving

@@ -1,4 +1,4 @@
-"""TPU compute ops: bit packing, NPHD/Hamming scoring, fused top-k scans."""
+"""Device compute ops: bit packing, NPHD/Hamming scoring, fused top-k scans."""
 
 from iscc_search_tpu.ops.packing import pack_codes, unpack_code
 from iscc_search_tpu.ops.nphd import nphd_scores, hamming_scores

@@ -1,6 +1,6 @@
 """
 NPHD (Normalized Prefix Hamming Distance) and Hamming similarity scoring in
-pure JAX — the semantic reference implementation for the Pallas TPU kernels
+pure JAX — the semantic reference implementation for the matmul scan
 and the execution path on CPU backends.
 
 NPHD semantics (matching iscc-usearch's patched metric as exercised by the
@@ -39,7 +39,7 @@ def nphd_scores(q_codes, q_lanes, db_codes, db_lanes, db_valid=None):
     """
     max_lanes = q_codes.shape[-1]
     # (Q, N, L) xor popcounts — fine for the reference path / small chunks;
-    # the production path tiles this inside a scan or Pallas kernel.
+    # the production path tiles this inside a scan.
     x = jnp.bitwise_xor(q_codes[:, None, :], db_codes[None, :, :])
     pops = jax.lax.population_count(x).astype(jnp.int32)
 

@@ -1,6 +1,6 @@
 """
 Bit-packing of variable-length binary codes into fixed-width uint32 lane
-matrices — the device-resident layout of the TPU engine.
+matrices — the device-resident layout of the scan engine.
 
 Replaces the reference's usearch byte-vector layout (iscc-usearch
 ShardedNphdIndex stores raw byte arrays per vector): here every code row is a

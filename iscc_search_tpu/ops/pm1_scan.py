@@ -1,5 +1,5 @@
 """
-MXU matmul formulation of the NPHD/Hamming scan — the production search path.
+Matmul formulation of the NPHD/Hamming scan — the production search path.
 
 Key identity: with codes encoded as ±1 vectors, ``dot(q, d) = matched_bits -
 mismatched_bits = bits - 2*hamming``. Masking the *query* to the pair's
@@ -15,11 +15,12 @@ masking. The engine partitions database rows by code length so ``min_bits``
 depends only on (query, partition), making the scale a per-row broadcast
 (SURVEY §7 "hard parts": sort/partition rows by length).
 
-The database stays bit-packed in HBM ((N, 8) uint32 = 32 B/row); each scan
-chunk is unpacked to ±1 on the fly (8x less HBM traffic than storing
-unpacked codes). Top-k per chunk uses the TPU-optimized ``approx_max_k``
-(recall_target configurable) or exact ``lax.top_k``; chunk winners merge in
-a single final top-k (no serial carry, so XLA pipelines chunk DMA against
+The database stays bit-packed in device memory ((N, 8) uint32 = 32 B/row);
+each scan chunk is unpacked to ±1 on the fly (8x less memory traffic than
+storing unpacked codes). The exact path is a two-phase block-max scan
+(:func:`pm1_blockmax_topk_impl`); the recall-targeted path takes a per-chunk
+``approx_max_k`` (or exact ``lax.top_k``) and merges chunk winners in a
+single final top-k (no serial carry, so XLA pipelines chunk loads against
 compute).
 """
 
@@ -36,6 +37,15 @@ from iscc_search_tpu.compile_cache import ensure_compile_cache
 ensure_compile_cache()
 
 NEG_SCORE = -1.0
+
+#: Named scopes of the block-max scan's phases; a profiler trace attributes
+#: device time to them through the op metadata of each kernel.
+PHASE_SCOPES = (
+    "blockmax_phase1_scan",
+    "blockmax_phase2_top_blocks",
+    "blockmax_phase3_rescore",
+    "blockmax_final_topk",
+)
 
 def _mark_varying(x, axes):
     """Mark a value device-varying over mesh axes (pcast with pvary fallback)."""
@@ -56,8 +66,7 @@ def unpack_pm1(packed, nbits, dtype=jnp.bfloat16):
     """
     lanes = nbits // 32
     # Shifts built via iota (not a captured constant) and the 0/1 -> ±1 step
-    # via compare+select (no direct uint32 -> bf16 cast) so this expression
-    # also lowers inside Pallas/Mosaic kernel bodies.
+    # via compare+select (no direct uint32 -> bf16 cast).
     shifts = (31 - jax.lax.broadcasted_iota(jnp.int32, (1, 1, 32), 2)).astype(jnp.uint32)
     bits = (packed[:, :lanes, None] >> shifts) & jnp.uint32(1)
     bits = bits.reshape(packed.shape[0], nbits)
@@ -77,7 +86,10 @@ def unpack_pm1_np(packed, nbits, dtype=np.float32):
 
 
 def _chunk_scores(q_pm1, q_scale, chunk_packed, chunk_valid, nbits, dtype):
-    """Scores for one chunk: unpack -> matmul -> scale -> mask."""
+    """Scores for one chunk: unpack -> matmul -> scale -> mask.
+
+    The ±1 products and their sums are small integers, so bf16 operands with
+    f32 accumulation are exact."""
     d = unpack_pm1(chunk_packed, nbits, dtype)
     acc_t = jnp.float32 if dtype == jnp.bfloat16 else jnp.int32
     dot = jax.lax.dot_general(
@@ -113,7 +125,7 @@ def pm1_topk_impl(
     :param chunk_size: scan chunk rows (static)
     :param dtype: matmul input dtype (bf16 default; int8 where supported)
     :param recall_target: None = exact lax.top_k per chunk; float in (0,1] =
-        TPU approx_max_k with that per-chunk recall target
+        ``lax.approx_max_k`` with that per-chunk recall target
     :return: (scores (Q, k) float32 desc, indices (Q, k) int32, -1 padding)
     """
     n = db_packed.shape[0]
@@ -190,12 +202,11 @@ def topk_blocks_hier(block_max, k, super_block=128):
     bm3 = block_max.reshape(q, ns, super_block)
     super_max = jnp.max(bm3, axis=2)
     _, top_super = jax.lax.top_k(super_max, kk)  # (Q, kk) distinct super ids
-    # Gather the surviving super-blocks' maxima rows with a one-hot matmul:
-    # a scattered lane-dim gather is slow on TPU, the MXU contraction is not.
-    onehot = jax.nn.one_hot(top_super, ns, dtype=block_max.dtype)  # (Q, kk, ns)
-    cand = jax.lax.dot_general(
-        onehot, bm3, (((2,), (1,)), ((0,), (0,)))
-    )  # (Q, kk, super_block)
+    # Gather the surviving super-blocks' maxima rows. A gather copies the f32
+    # maxima bit for bit; a one-hot f32 matmul would not on a GPU, where a
+    # default-precision f32 dot may run in TF32 and round the maxima, which
+    # breaks the superset argument above.
+    cand = jnp.take_along_axis(bm3, top_super[:, :, None], axis=1)  # (Q, kk, super_block)
     _, pos = jax.lax.top_k(cand.reshape(q, kk * super_block), kk)
     sel_super = jnp.take_along_axis(top_super, pos // super_block, axis=1)
     return sel_super * super_block + pos % super_block
@@ -293,34 +304,34 @@ def pm1_blockmax_topk_impl(
     carry = None
     if pvary_axes:
         carry = _mark_varying(jnp.zeros((), jnp.int32), tuple(pvary_axes))
-    _, bm = jax.lax.scan(body, carry, (db_c, valid_c))  # (nch, Q, bpc)
-    block_max = jnp.transpose(bm, (1, 0, 2)).reshape(q, total_blocks)
+    with jax.named_scope(PHASE_SCOPES[0]):
+        _, bm = jax.lax.scan(body, carry, (db_c, valid_c))  # (nch, Q, bpc)
+        block_max = jnp.transpose(bm, (1, 0, 2)).reshape(q, total_blocks)
 
-    top_blocks = topk_blocks_hier(block_max, k)  # (Q, k) block ids
+    with jax.named_scope(PHASE_SCOPES[1]):
+        top_blocks = topk_blocks_hier(block_max, k)  # (Q, k) block ids
 
     # Gather candidate rows and rescore exactly
     rows = top_blocks[:, :, None] * block + jnp.arange(block, dtype=jnp.int32)[None, None, :]
     rows = rows.reshape(q, k * block)  # (Q, k*block) global row ids
-    # Per-row/per-element takes, NOT per-block: on this XLA path the row
-    # takes fuse into the unpack+dot consumer and measure 38.9 ms vs 45.3 ms
-    # for blocked gathers (benchmarks/exp_pm1_gather.py) — the opposite of
-    # the Pallas path, where blocked validity gathers won 2.6 ms.
+    # Per-row takes, so XLA can fuse them into the unpack+dot consumer.
     #
     # The rescore streams over candidate segments (segmented_unpack_dots):
     # materializing all (Q, k*block, nbits) unpacked candidates at once is
-    # O(Q*k) HBM — 8 GB at Q=256, k=256, nbits=256, which OOMs a 16 GB chip
-    # for a legal API call (limit > ~128 routes here whenever no fast twin
-    # fits). The validity gather stays full-width: (Q, k*block) bools are
-    # tiny next to the unpacked candidates.
+    # O(Q*k) device memory — 8 GB at Q=256, k=256, nbits=256 in f32 — for a
+    # legal API call. The validity gather stays full-width: (Q, k*block)
+    # bools are tiny next to the unpacked candidates.
     acc_t = jnp.float32 if dtype == jnp.bfloat16 else jnp.int32
-    dots = segmented_unpack_dots(q_pm1.astype(dtype), db_packed, rows, nbits, dtype, acc_t)
-    cand_valid = jnp.take(db_valid, rows.reshape(-1), axis=0).reshape(q, k * block)
-    scores = 0.5 + dots * q_scale[:, None]
-    scores = jnp.where(cand_valid, scores, NEG_SCORE)
+    with jax.named_scope(PHASE_SCOPES[2]):
+        dots = segmented_unpack_dots(q_pm1.astype(dtype), db_packed, rows, nbits, dtype, acc_t)
+        cand_valid = jnp.take(db_valid, rows.reshape(-1), axis=0).reshape(q, k * block)
+        scores = 0.5 + dots * q_scale[:, None]
+        scores = jnp.where(cand_valid, scores, NEG_SCORE)
 
-    fs, pos = jax.lax.top_k(scores, k)
-    fi = jnp.take_along_axis(rows, pos, axis=1)
-    fi = jnp.where(fs > NEG_SCORE, fi, -1)
+    with jax.named_scope(PHASE_SCOPES[3]):
+        fs, pos = jax.lax.top_k(scores, k)
+        fi = jnp.take_along_axis(rows, pos, axis=1)
+        fi = jnp.where(fs > NEG_SCORE, fi, -1)
     return fs, fi
 
 
@@ -335,9 +346,7 @@ def prepare_queries_impl(q_packed, q_lanes, partition_bits):
     """
     Traceable twin of :func:`prepare_queries`: unpack + prefix-mask + scale
     from the 32 B/query packed codes, composable INSIDE the jitted search
-    programs — so serving uploads packed queries and pays ONE dispatch (a
-    separate prep dispatch measurably regressed closed-loop latency on
-    fixed-latency links).
+    programs — so serving uploads packed queries and pays ONE dispatch.
 
     Bit-exact vs the host version (same unpack order, f32 arithmetic).
     """

@@ -29,6 +29,13 @@ __all__ = ["SearchOptions", "search_opts", "get_index"]
 
 ENV_PREFIX = "ISCC_SEARCH_"
 
+#: Variables of options that were removed; a deployment still setting one is
+#: refused at start-up instead of silently running without what it asked for.
+REMOVED_ENV = {
+    "ISCC_SEARCH_SCAN_KERNEL": "the exact scan has one implementation (the XLA block-max scan)",
+    "ISCC_SEARCH_UNPACKED_MAX_BYTES": "no unpacked device layout is kept; rows stay bit-packed",
+}
+
 
 class SearchOptions(BaseModel):
     """Runtime options, overridable via ISCC_SEARCH_* environment variables."""
@@ -90,21 +97,19 @@ class SearchOptions(BaseModel):
     # Flush control (auto-save derived indexes after N dirty mutations)
     flush_interval: int = Field(100000, ge=0, description="ISCC_SEARCH_FLUSH_INTERVAL - 0 disables")
 
-    # Device/scan knobs (TPU engine replacements for the HNSW quality knobs)
+    # Device/scan knobs (the scan engine's replacements for the HNSW quality knobs)
     scan_chunk_rows: int = Field(32768, ge=128, description="ISCC_SEARCH_SCAN_CHUNK_ROWS - top-k scan chunk size")
     query_batch_max: int = Field(
         512,
         ge=1,
-        description="ISCC_SEARCH_QUERY_BATCH_MAX - max fused query batch "
-        "(512 is the measured single-chip throughput peak: +14% over 256 at "
-        "8.4M x 256-bit on v5e; 1024 regresses)",
+        description="ISCC_SEARCH_QUERY_BATCH_MAX - max fused query batch",
     )
     scan_recall_target: float | None = Field(
         None,
         gt=0.0,
         le=1.0,
         description="ISCC_SEARCH_SCAN_RECALL_TARGET - per-chunk top-k recall target; unset/1.0 = exact scan "
-        "(recall 1.0); values < 1.0 trade a little recall for throughput (TPU approx_max_k)",
+        "(recall 1.0); values < 1.0 trade a little recall for throughput (lax.approx_max_k)",
     )
     mesh_devices: int = Field(
         0,
@@ -135,8 +140,8 @@ class SearchOptions(BaseModel):
     distributed: bool = Field(
         False,
         description="ISCC_SEARCH_DISTRIBUTED - call jax.distributed.initialize() before serving "
-        "(TPU pods auto-detect topology; elsewhere set JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / "
-        "JAX_PROCESS_ID). Process 0 serves HTTP; other processes run the follower loop",
+        "(set JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID). Process 0 serves HTTP; "
+        "other processes run the follower loop",
     )
     multihost_index: str | None = Field(
         None,
@@ -146,14 +151,8 @@ class SearchOptions(BaseModel):
     compile_cache_dir: str | None = Field(
         None,
         description="ISCC_SEARCH_COMPILE_CACHE_DIR - persistent XLA compile cache directory "
-        "(unset = platform cache dir; 'off' disables). Restart cold-start fix: compiled scan "
-        "kernels are reloaded instead of recompiled",
-    )
-    scan_kernel: str = Field(
-        "auto",
-        pattern="^(auto|pallas|xla)$",
-        description="ISCC_SEARCH_SCAN_KERNEL - scan implementation: auto (fused Pallas kernel with ±1 int8 "
-        "HBM layout on TPU, XLA elsewhere), pallas, or xla",
+        "(unset = JAX_COMPILATION_CACHE_DIR when set, else .jax_cache/ beside the package; 'off' "
+        "disables). Restart cold-start fix: compiled scan programs are reloaded instead of recompiled",
     )
     search_batching: bool = Field(
         True,
@@ -210,6 +209,9 @@ class SearchOptions(BaseModel):
         # type: (dict | None) -> SearchOptions
         """Build options from ISCC_SEARCH_* env vars (unset fields use defaults)."""
         env = os.environ if env is None else env
+        removed = [f"{name} ({why})" for name, why in REMOVED_ENV.items() if env.get(name)]
+        if removed:
+            raise ValueError("removed options are still set; unset them: " + "; ".join(removed))
         kwargs = {}
         for name in cls.model_fields:
             raw = env.get(ENV_PREFIX + name.upper())

@@ -1,6 +1,6 @@
 """
 Multi-host initialization for pod-slice deployments (BASELINE config 5:
-100M codes sharded across a v5e-8 slice or larger).
+100M codes sharded across several devices).
 
 One process per host joins the cluster via ``jax.distributed``; the global
 mesh then spans every chip, the database row-shards over it

@@ -17,7 +17,7 @@ than the flat merge). The final top-k is replicated on every device.
 
 The reference explicitly does not support multi-process serving
 (/root/reference/iscc_search/indexes/usearch/manager.py:43-47 warns against
-it); this module is the TPU-native answer to that gap. XLA owns all
+it); this module is the accelerator-native answer to that gap. XLA owns all
 collectives — there is no NCCL/MPI layer.
 
 Process topology: with ``jax.distributed`` each host contributes its local

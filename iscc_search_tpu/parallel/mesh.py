@@ -17,7 +17,7 @@ def make_mesh(n_devices=None, axis_name=SHARD_AXIS):
 
     The database rows shard along this single axis (capacity scaling — the
     analog of the reference's file-level shard rotation, SURVEY §2.3); queries
-    replicate. On a pod slice the axis rides ICI; across hosts jax.distributed
+    replicate. Within a host the axis rides the cards' interconnect; across hosts jax.distributed
     extends the same mesh over DCN.
     """
     devices = jax.devices()

@@ -27,7 +27,7 @@ Consistency model (store-is-truth, derived-state mirrored):
 
 The reference explicitly refuses this topology
 (/root/reference/iscc_search/indexes/usearch/manager.py:43-47 — "multiple
-processes" unsupported); this is the TPU-native answer (SURVEY §2.3,
+processes" unsupported); this is the accelerator-native answer (SURVEY §2.3,
 BASELINE config 5).
 """
 

@@ -52,7 +52,7 @@ def shard_database(mesh, db_codes, db_lanes, db_valid, axis_name=SHARD_AXIS):
 @functools.lru_cache(maxsize=64)
 def _sharded_topk_fn(mesh, k, chunk_size, metric, ndim_bits, axis_name, merge_k=None):
     # type: (...) -> ...
-    # Memoized like the sibling builders (pm1_sharded/pallas_sharded):
+    # Memoized like the sibling builders (pm1_sharded):
     # a fresh shard_map + jit wrapper per call would retrace and recompile
     # on EVERY search (Mesh is hashable).
     def local_step(q_codes, q_lanes, db_codes, db_lanes, db_valid):

@@ -1,5 +1,5 @@
 """
-Wire schemas for the ISCC-Search TPU API.
+Wire schemas for the ISCC-Search API.
 
 Pydantic v2 request/response models matching the reference's OpenAPI-generated
 schema surface (reference iscc_search/schema.py: IsccIndex:18, IsccSimprint:45,

@@ -274,7 +274,7 @@ def create_app(index=None, opts=None):
         html = f"""<!doctype html>
 <html>
   <head>
-    <title>ISCC-Search TPU API - Documentation</title>
+    <title>ISCC-Search API - Documentation</title>
     <meta charset="utf-8" />
     <meta name="viewport" content="width=device-width, initial-scale=1" />
     <script src="https://unpkg.com/@stoplight/elements/web-components.min.js"></script>
@@ -293,7 +293,7 @@ def create_app(index=None, opts=None):
         if f.exists():
             return Response(f.read_text(), media_type="text/html")
         return Response(
-            {"name": "ISCC-Search TPU", "version": __version__, "docs": "/docs", "openapi": "/openapi.json"}
+            {"name": "ISCC-Search", "version": __version__, "docs": "/docs", "openapi": "/openapi.json"}
         )
 
     @app.route("GET", "/metrics")

@@ -28,9 +28,8 @@ class ThreadingWSGIServer(ThreadingMixIn, WSGIServer):
     daemon_threads = True
     # The socketserver default listen backlog is 5. Clients without
     # keep-alive (one TCP connect per request) overflow that under modest
-    # concurrency, and a dropped SYN retransmits after exactly 1s — measured
-    # as a 1074ms p99 at 16 clients vs an 89ms p50
-    # (benchmarks/LATENCY_16clients.json, round 2).
+    # concurrency, and a dropped SYN retransmits after exactly 1s, which
+    # shows up as a ~1 s p99 under 16 clients.
     request_queue_size = 128
 
 
@@ -129,19 +128,23 @@ def _serve_follower(opts):
         index.close()
 
 
-def serve(opts=None):
-    # type: (...) -> None
-    """Run the API server until interrupted (index lifecycle managed here)."""
+def serve(opts=None, on_ready=None):
+    # type: (..., ...) -> None
+    """Run the API server until interrupted (index lifecycle managed here).
+
+    :param on_ready: called with the bound HTTP server just before it starts
+        serving; a caller that runs ``serve`` on a thread keeps it to call
+        ``shutdown()``, which returns ``serve`` through its normal cleanup.
+    """
     from iscc_search_tpu.options import get_index, search_opts
     from iscc_search_tpu.server.app import create_app
 
     opts = opts or search_opts
     if opts.distributed:
         # Multi-host cluster (SURVEY §2.3; BASELINE config 5): initialize the
-        # jax.distributed runtime (TPU pods auto-detect the topology; other
-        # deployments set JAX_COORDINATOR_ADDRESS/JAX_NUM_PROCESSES/
-        # JAX_PROCESS_ID), then split roles: process 0 serves HTTP as the
-        # coordinator, the rest run the follower loop.
+        # jax.distributed runtime (deployments set JAX_COORDINATOR_ADDRESS/
+        # JAX_NUM_PROCESSES/JAX_PROCESS_ID), then split roles: process 0
+        # serves HTTP as the coordinator, the rest run the follower loop.
         import jax
 
         jax.distributed.initialize()
@@ -204,6 +207,8 @@ def serve(opts=None):
             index.close()
             raise
     logger.info(f"Serving on http://{opts.host}:{opts.port} (backend: {opts.index_uri})")
+    if on_ready is not None:
+        on_ready(httpd)
 
     # Graceful SIGTERM (Docker/k8s stop): drain the server loop, then flush
     # and close the index in the finally block — parity with the reference's

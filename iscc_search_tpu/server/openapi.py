@@ -185,8 +185,8 @@ def build_openapi():
     return {
         "openapi": "3.1.0",
         "info": {
-            "title": "ISCC-Search TPU API",
-            "description": "TPU-native nearest-neighbor multi-index for the "
+            "title": "ISCC-Search API",
+            "description": "Exact nearest-neighbor multi-index for the "
             "International Standard Content Code (ISCC)",
             "version": __version__,
         },

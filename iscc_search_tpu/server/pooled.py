@@ -17,7 +17,7 @@ engine's capability. This server keeps the same synchronous WSGI contract
 The reference deploys FastAPI on uvicorn's event loop
 (/root/reference/docs/howto/deployment.md); this is the equivalent
 transport upgrade for the hand-rolled stack (the environment ships no
-ASGI server), sized for the TPU engine's batched throughput.
+ASGI server), sized for the device engine's batched throughput.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@ Multi-process scale-out serving: SO_REUSEPORT HTTP workers + one engine.
 
 One Python process tops out near a single core for the per-request work
 (HTTP parse, JSON, validation) no matter how many threads it runs — the
-transport and the TPU engine can both go far faster. This module splits
+transport and the device engine can both go far faster. This module splits
 serving across processes:
 
 - The **engine process** (the `serve` parent) keeps exclusive ownership of
@@ -565,8 +565,9 @@ def serve_scaleout(opts, stop=None):
 
         cfg = json.dumps({"opts": json.loads(opts.model_dump_json()), "socket_path": socket_path})
         # Workers never touch a device index (all index calls go over IPC) —
-        # pin them to the CPU backend so a stray jax import can't try to claim
-        # the engine's TPU (single-client device runtimes would wedge). The
+        # pin them to the CPU backend so a stray jax import can't open the
+        # engine's card: one process per card, since a second JAX process
+        # reserves device memory at start-up and competes for it. The
         # package's location rides PYTHONPATH so `-m` works from any cwd (and
         # for non-installed source checkouts).
         import iscc_search_tpu

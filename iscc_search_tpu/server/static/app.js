@@ -1,4 +1,4 @@
-/* ISCC-Search TPU web frontend: lookup/search + aggregator ingestion dashboard.
+/* ISCC-Search web frontend: lookup/search + aggregator ingestion dashboard.
  *
  * Safety rule: every piece of response data enters the DOM through the h()
  * hyperscript helper below (createElement + textContent). No innerHTML with

@@ -582,7 +582,7 @@ class HostStore:
         incremental (log rotation + sliced shared-lock snapshot streaming),
         so concurrent puts/gets see only sub-millisecond lock slices instead
         of a full-store pause (a 1M-asset aggregator ingest measured a 15.5s
-        stall on the old synchronous path — benchmarks/AGGREGATOR_INGEST.json).
+        stall on the old synchronous path, measured by benchmarks/aggregator_ingest.py).
         """
         with self._use() as h:
             ok = self._lib.ts_flush(h)

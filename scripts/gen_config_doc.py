@@ -31,7 +31,7 @@ def render():
             # Key on the field, not on "has a factory": any future
             # factory-backed field would otherwise be documented as a
             # platform dir it has nothing to do with.
-            default = "(platform data dir)" if name == "index_uri" else "(computed)"
+            default = "(XDG data dir)" if name == "index_uri" else "(computed)"
         lines.append(f"| `{var}` | `{default}` | {rest.replace('|', '/')} |")
     lines += [
         "",
@@ -40,7 +40,6 @@ def render():
         "| Variable | Default | Description |",
         "|---|---|---|",
         "| `TRUCTSTORE_EXT_MIN` | `64` | externalize plain store values >= this many bytes (kept on disk, pread on demand); 0 keeps everything in RAM |",
-        "| `ISCC_SEARCH_UNPACKED_MAX_BYTES` | `9663676416` | HBM budget for the ±1 int8 fast layout; partitions beyond it serve from the packed layout |",
         "",
     ]
     return "\n".join(lines)

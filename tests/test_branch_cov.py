@@ -16,7 +16,6 @@ import numpy as np
 import pytest
 from click.testing import CliRunner
 
-import jax.numpy as jnp
 
 from iscc_search_tpu.cli import cli
 from iscc_search_tpu.cli import common as cli_common
@@ -235,140 +234,6 @@ def test_serve_plain_lifecycle(monkeypatch):
 
     monkeypatch.setattr(httpd.ThreadingWSGIServer, "serve_forever", lambda self, poll_interval=0.5: None)
     httpd.serve(SearchOptions(index_uri="memory://", host="127.0.0.1", port=0, http_backend="wsgiref"))
-
-
-# ------------------------------------------------------ parallel/pallas_sharded.py
-
-
-@pytest.fixture(scope="module")
-def mesh():
-    from iscc_search_tpu.parallel import make_mesh
-
-    return make_mesh(8)
-
-
-def _pallas_data(n, seed=55):
-    rng = np.random.default_rng(seed)
-    packed = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
-    valid = np.ones(n, bool)
-    valid[rng.integers(0, n, n // 20)] = False
-    return packed, valid
-
-
-def test_shard_unpacked_db_chunk_edges(mesh):
-    from iscc_search_tpu.ops.pm1_scan import unpack_pm1_np
-    from iscc_search_tpu.parallel.pallas_sharded import shard_unpacked_db
-    from iscc_search_tpu.parallel.pm1_sharded import shard_pm1_database
-
-    n = 8 * 96  # per-shard 96 rows: not divisible by chunk_rows -> c = n arm
-    packed, valid = _pallas_data(n)
-    db_s, _ = shard_pm1_database(mesh, jnp.asarray(packed), jnp.asarray(valid))
-    out = shard_unpacked_db(mesh, db_s, 256, chunk_rows=64)
-    assert out.shape == (n, 256)
-    ref = unpack_pm1_np(packed, 256, np.float32).astype(np.int8) * 2 - 1  # 0/1 -> wrong scale guard
-    got = np.asarray(out)
-    assert set(np.unique(got)) <= {-1, 1}
-    # permute=True with per-shard rows not 4096-aligned -> whole-shard arm
-    n2 = 8 * 4096
-    packed2, valid2 = _pallas_data(n2, seed=56)
-    db_s2, _ = shard_pm1_database(mesh, jnp.asarray(packed2), jnp.asarray(valid2))
-    out2 = shard_unpacked_db(mesh, db_s2, 256, chunk_rows=1000, permute=True)
-    assert out2.shape == (n2, 256)
-
-
-@pytest.mark.parametrize("with_unpacked,with_perm", [(True, False), (False, True), (True, True)])
-def test_sharded_pallas_topk_twin_combos(mesh, with_unpacked, with_perm):
-    from iscc_search_tpu.ops.pm1_scan import prepare_queries
-    from iscc_search_tpu.parallel.pallas_sharded import shard_unpacked_db, sharded_pallas_topk
-    from iscc_search_tpu.parallel.pm1_sharded import shard_pm1_database, sharded_pm1_topk
-
-    n, k = 8 * 4096, 5
-    packed, valid = _pallas_data(n, seed=57)
-    q_pm1, q_scale = prepare_queries(packed[:4], np.full(4, 8, np.int32), 256)
-    db_s, valid_s = shard_pm1_database(mesh, jnp.asarray(packed), jnp.asarray(valid))
-    unpacked = shard_unpacked_db(mesh, db_s, 256) if with_unpacked else None
-    perm = shard_unpacked_db(mesh, db_s, 256, permute=True) if with_perm else None
-    scores, idx = sharded_pallas_topk(
-        mesh, jnp.asarray(q_pm1), jnp.asarray(q_scale), db_s, unpacked, valid_s, k, 256,
-        chunk_size=4096, interpret=True, db_perm=perm, merge_k=8,
-    )
-    ref_s, _ = sharded_pm1_topk(
-        mesh, jnp.asarray(q_pm1), jnp.asarray(q_scale), db_s, valid_s, k, 256, chunk_size=512, merge_k=8
-    )
-    assert np.allclose(np.sort(np.asarray(scores), 1), np.sort(np.asarray(ref_s), 1), atol=2e-3)
-
-
-def test_sharded_pallas_requires_a_twin(mesh):
-    from iscc_search_tpu.parallel.pallas_sharded import sharded_pallas_topk
-
-    n = 8 * 4096
-    packed, valid = _pallas_data(n, seed=58)
-    from iscc_search_tpu.parallel.pm1_sharded import shard_pm1_database
-
-    db_s, valid_s = shard_pm1_database(mesh, jnp.asarray(packed), jnp.asarray(valid))
-    with pytest.raises(ValueError):
-        sharded_pallas_topk(
-            mesh, jnp.zeros((4, 256), jnp.float32), jnp.ones(4, jnp.float32), db_s, None, valid_s,
-            5, 256, chunk_size=4096, interpret=True,
-        )
-
-
-# ------------------------------------------------------------ ops/pallas_scan.py
-
-
-def test_pallas_helpers_without_pltpu(monkeypatch):
-    from iscc_search_tpu.ops import pallas_scan as ps
-
-    monkeypatch.setattr(ps, "_HAS_PLTPU", False)
-    assert ps._vmem() is None
-    spec = ps._block_spec((8, 128), lambda i: (0, 0))
-    assert spec is not None
-
-
-def test_pallas_blockmax_config_errors():
-    from iscc_search_tpu.ops.pallas_scan import pallas_blockmax
-
-    q = jnp.zeros((8, 256), jnp.float32)
-    qs = jnp.ones(8, jnp.float32)
-    db = jnp.zeros((4096, 8), jnp.uint32)
-    valid = jnp.ones(4096, bool)
-    with pytest.raises(ValueError):  # rows not divisible by chunk
-        pallas_blockmax(q, qs, db, valid, 256, chunk_size=1000, interpret=True)
-    with pytest.raises(ValueError):  # permuted without unpacked
-        pallas_blockmax(q, qs, db, valid, 256, chunk_size=4096, interpret=True, permuted=True)
-    with pytest.raises(ValueError):  # permuted + bad chunk
-        pallas_blockmax(
-            q, qs, jnp.zeros((4096, 256), jnp.int8), valid, 256,
-            chunk_size=256, interpret=True, unpacked=True, permuted=True,
-        )
-    with pytest.raises(ValueError):  # packed_perm + unpacked conflict
-        pallas_blockmax(q, qs, db, valid, 256, chunk_size=4096, interpret=True, packed_perm=True, unpacked=True)
-    with pytest.raises(ValueError):  # bitplane on a narrow partition
-        pallas_blockmax(q, qs, jnp.zeros((4096, 4), jnp.uint32), valid, 128, chunk_size=4096, interpret=True, bitplane=True)
-
-
-def test_build_unpacked_db_permute_errors():
-    from iscc_search_tpu.ops.pallas_scan import build_unpacked_db
-
-    with pytest.raises(ValueError):
-        build_unpacked_db(jnp.zeros((100, 8), jnp.uint32), 256, permute=True)
-    with pytest.raises(ValueError):
-        build_unpacked_db(jnp.zeros((8192, 8), jnp.uint32), 256, chunk_rows=1000, permute=True)
-
-
-def test_gather_rescore_no_padding_arm():
-    """q*k divisible by 8 exercises the pad == 0 arm of the gather kernel."""
-    import numpy as np
-
-    from iscc_search_tpu.ops.pallas_scan import build_unpacked_db, pallas_gather_rescore
-
-    rng = np.random.default_rng(91)
-    packed = rng.integers(0, 2**32, (256, 8), dtype=np.uint32)
-    unpacked = build_unpacked_db(jnp.asarray(packed), 256)
-    q = np.where(rng.integers(0, 2, (4, 256)), 1, -1).astype(np.int8)
-    ids = jnp.asarray(rng.integers(0, 2, (4, 2)), jnp.int32)  # 4*2 = 8 steps, pad 0
-    out = pallas_gather_rescore(jnp.asarray(q), ids, unpacked, 2, interpret=True)
-    assert out.shape == (4, 256)
 
 
 # ------------------------------------------------------------ engine/batcher.py

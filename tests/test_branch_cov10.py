@@ -8,7 +8,6 @@ import socket
 import threading
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -177,47 +176,3 @@ def test_init_distributed_explicit_single_host_short_circuits(monkeypatch):
     distributed.init_distributed(None, None, None)  # nothing configured
 
 
-# ------------------------------------------------- sharded unpack chunk arms
-
-
-@pytest.fixture(scope="module")
-def mesh8():
-    return make_mesh(8)
-
-
-def test_shard_unpacked_db_divisible_chunk_repermuted(mesh8):
-    """Per-shard rows divide chunk_rows (the chunked arm) but the chunk is
-    not 4096-aligned while permute=True -> falls back to whole-shard unpack."""
-    from iscc_search_tpu.parallel.pallas_sharded import shard_unpacked_db
-    from iscc_search_tpu.parallel.pm1_sharded import shard_pm1_database
-
-    n = 8 * 8192
-    rng = np.random.default_rng(60)
-    packed = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
-    db_s, _ = shard_pm1_database(mesh8, jnp.asarray(packed), jnp.asarray(np.ones(n, bool)))
-    out = shard_unpacked_db(mesh8, db_s, 256, chunk_rows=2048, permute=True)
-    assert out.shape == (n, 256)
-    got = np.asarray(out[:4096])
-    assert set(np.unique(got)) <= {-1, 1}
-
-
-def test_sharded_pallas_topk_default_merge_k(mesh8):
-    from iscc_search_tpu.ops.pm1_scan import prepare_queries
-    from iscc_search_tpu.parallel.pallas_sharded import shard_unpacked_db, sharded_pallas_topk
-    from iscc_search_tpu.parallel.pm1_sharded import shard_pm1_database, sharded_pm1_topk
-
-    n, k = 8 * 4096, 5
-    rng = np.random.default_rng(61)
-    packed = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
-    valid = np.ones(n, bool)
-    q_pm1, q_scale = prepare_queries(packed[:2], np.full(2, 8, np.int32), 256)
-    db_s, valid_s = shard_pm1_database(mesh8, jnp.asarray(packed), jnp.asarray(valid))
-    unpacked = shard_unpacked_db(mesh8, db_s, 256)
-    scores, idx = sharded_pallas_topk(
-        mesh8, jnp.asarray(q_pm1), jnp.asarray(q_scale), db_s, unpacked, valid_s, k, 256,
-        chunk_size=4096, interpret=True,
-    )
-    ref_s, _ = sharded_pm1_topk(
-        mesh8, jnp.asarray(q_pm1), jnp.asarray(q_scale), db_s, valid_s, k, 256, chunk_size=512
-    )
-    assert np.allclose(np.sort(np.asarray(scores), 1), np.sort(np.asarray(ref_s), 1), atol=2e-3)

@@ -1,7 +1,7 @@
 """Branch coverage round 15: device-index engine arms — control-hook
 passthrough, add_packed validation, body_at bounds, empty-search short
 circuits, save coalescing/sequencing, crash-residue GC sequence guard, and
-the Pallas twin-selection tiers (forced interpret mode on the CPU mesh)."""
+device rebuilds after compaction."""
 
 import os
 import time
@@ -248,13 +248,11 @@ def test_crash_residue_gc_sequence_arms(tmp_path, rng):
     idx2.close()
 
 
-# ----------------------------------------------- twin-selection tiers (CPU)
+# ----------------------------------------------- device rebuild after compaction
 
 
-def _filled(tmp_path, rng, nbytes, n, budget=None, name="i", **kw):
-    if budget is not None:
-        os.environ["ISCC_SEARCH_UNPACKED_MAX_BYTES"] = str(budget)
-    idx = DeviceNphdIndex(tmp_path / name, scan_kernel="pallas", **kw)
+def _filled(tmp_path, rng, nbytes, n, name="i", **kw):
+    idx = DeviceNphdIndex(tmp_path / name, **kw)
     packed = rng.integers(0, 2**32, (n, nbytes // 4), dtype=np.uint32)
     keys = np.zeros((n, idx.key_bytes), np.uint8)
     keys[:, :8] = np.frombuffer(np.arange(n, dtype=">u8").tobytes(), np.uint8).reshape(n, 8)
@@ -262,58 +260,10 @@ def _filled(tmp_path, rng, nbytes, n, budget=None, name="i", **kw):
     return idx
 
 
-@pytest.fixture(autouse=True)
-def _restore_budget():
-    prior = os.environ.get("ISCC_SEARCH_UNPACKED_MAX_BYTES")
-    yield
-    if prior is None:
-        os.environ.pop("ISCC_SEARCH_UNPACKED_MAX_BYTES", None)
-    else:
-        os.environ["ISCC_SEARCH_UNPACKED_MAX_BYTES"] = prior
-
-
-def test_twins_bitplane_tier_256bit(tmp_path, rng):
-    idx = _filled(tmp_path, rng, 32, 16384)
-    parts = idx._sync_device()
-    part = parts[8]
-    assert part.unpacked_dev is not None and part.bitplane_dev is not None
-    assert parts is idx._sync_device()  # cache-hit arm
-    idx.close()
-
-
-def test_twins_narrow_both_layouts_and_perm_only(tmp_path, rng):
-    idx = _filled(tmp_path, rng, 8, 16384, budget=str(16384 * 64 * 3), name="a")
-    part = idx._sync_device()[2]
-    assert part.unpacked_dev is not None and part.perm_dev is not None
-    idx.close()
-    idx2 = _filled(tmp_path, rng, 8, 16384, budget=str(int(16384 * 64 * 1.5)), name="b")
-    part2 = idx2._sync_device()[2]
-    assert part2.unpacked_dev is None and part2.perm_dev is not None
-    idx2.close()
-
-
-def test_twins_beyond_budget_packed_bitplane_tier(tmp_path, rng):
-    idx = _filled(tmp_path, rng, 32, 16384, budget="1000")
-    part = idx._sync_device()[8]
-    assert part.unpacked_dev is None and part.bitplane_dev is not None
-    assert part.view_dev is not None
-    # Incremental appends drive the jit-cached twin rewriters twice
-    extra = rng.integers(0, 2**32, (4, 8), dtype=np.uint32)
-    k2 = np.full((4, idx.key_bytes), 7, np.uint8)
-    k2[:, 0] = np.arange(4)
-    idx.add_packed(k2, extra, 8)
-    idx._sync_device()
-    k3 = np.full((4, idx.key_bytes), 9, np.uint8)
-    k3[:, 0] = np.arange(4)
-    idx.add_packed(k3, extra, 8)
-    idx._sync_device()
-    idx.close()
-
-
 def test_full_rebuild_after_compaction_shrinks_rows(tmp_path, rng):
     """Row-space shrinks reach the device via _partitions=None (every
     shrinking path nulls it — _sync_device needs no rows<synced clause)."""
-    idx = _filled(tmp_path, rng, 32, 16384, budget="1000")
+    idx = _filled(tmp_path, rng, 32, 16384)
     idx._sync_device()
     keys = np.zeros((4, idx.key_bytes), np.uint8)
     keys[:, :8] = np.frombuffer(np.arange(4, dtype=">u8").tobytes(), np.uint8).reshape(4, 8)

@@ -1,6 +1,6 @@
 """Branch coverage round 18: loop-iteration-count arms (while/for sites need
 0, 1, and >=2 iterations), remaining short-circuit arms across the serving
-stack, TpuIndex degraded-state arms, and the mesh+pallas engine search path."""
+stack, and TpuIndex degraded-state arms."""
 
 import os
 import socket
@@ -612,44 +612,3 @@ def test_gc_keeps_unclassifiable_prefix(tmp_path):
     idx2.close()
 
 
-def test_small_forced_pallas_partition_has_no_twins(tmp_path):
-    rng = _np_rng()
-    idx = DeviceNphdIndex(tmp_path / "i", scan_kernel="pallas")
-    idx.add([1, 2], [rng.integers(0, 256, 32, dtype=np.uint8).tobytes() for _ in range(2)])
-    part = idx._sync_device()[8]
-    assert part.unpacked_dev is None and part.bitplane_dev is None
-    idx.close()
-
-
-def test_beyond_budget_narrow_lanes_has_no_twins(tmp_path, monkeypatch):
-    rng = _np_rng()
-    monkeypatch.setenv("ISCC_SEARCH_UNPACKED_MAX_BYTES", "1000")
-    idx = DeviceNphdIndex(tmp_path / "i", scan_kernel="pallas")
-    packed = rng.integers(0, 2**32, (16384, 2), dtype=np.uint32)
-    keys = np.zeros((16384, idx.key_bytes), np.uint8)
-    keys[:, :8] = np.frombuffer(np.arange(16384, dtype=">u8").tobytes(), np.uint8).reshape(-1, 8)
-    idx.add_packed(keys, packed, 2)
-    part = idx._sync_device()[2]
-    assert part.unpacked_dev is None and part.perm_dev is None and part.bitplane_dev is None
-    idx.close()
-
-
-def test_mesh_pallas_engine_search(tmp_path, monkeypatch):
-    from iscc_search_tpu.parallel import make_mesh
-
-    rng = _np_rng()
-    mesh = make_mesh(8)
-    n = 8 * 4096
-    packed = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
-    keys = np.zeros((n, 8), np.uint8)
-    keys[:, :8] = np.frombuffer(np.arange(n, dtype=">u8").tobytes(), np.uint8).reshape(-1, 8)
-
-    for name, budget in (("full", str(10 * n * 256)), ("perm_only", str(int(n * 256 * 1.5)))):
-        monkeypatch.setenv("ISCC_SEARCH_UNPACKED_MAX_BYTES", budget)
-        idx = DeviceNphdIndex(tmp_path / name, mesh=mesh, scan_kernel="pallas", shard_size=1 << 30)
-        idx.add_packed(keys, packed, 8)
-        res = idx.search([packed[7].astype(">u4").tobytes()], 3)
-        rows = res[0]
-        assert len(rows[1]) == 3
-        assert rows[1][0] == pytest.approx(1.0, abs=1e-3)
-        idx.close()

@@ -1,110 +1,15 @@
-"""Branch coverage round 19: pallas_blockmax validation short-circuits,
-single-plane bitplane kernel, segmented view-dot padding arms, device-index
-save-pipeline multi-iteration waits, and mesh+recall-target routing."""
+"""Branch coverage round 19: device-index save-pipeline multi-iteration
+waits and mesh+recall-target routing."""
 
 import os
 import threading
 import time
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from iscc_search_tpu.engine import DeviceNphdIndex
 from iscc_search_tpu.engine import device_index as di
-from iscc_search_tpu.ops.pallas_scan import (
-    bit_transpose_packed,
-    pallas_blockmax,
-    pallas_blockmax_topk,
-    segmented_view_dots,
-)
-from iscc_search_tpu.ops.pm1_scan import prepare_queries, unpack_pm1_np
-
-
-def _data(n=4096, lanes=8, seed=90):
-    rng = np.random.default_rng(seed)
-    packed = rng.integers(0, 2**32, (n, lanes), dtype=np.uint32)
-    q_pm1, q_scale = prepare_queries(packed[:2], np.full(2, lanes, np.int32), lanes * 32)
-    return packed, jnp.asarray(q_pm1), jnp.asarray(q_scale), jnp.asarray(np.ones(n, bool))
-
-
-# --------------------------------------------------- pallas validation arms
-
-
-def test_blockmax_rejects_indivisible_db():
-    packed, q, qs, valid = _data(4096 + 128)
-    with pytest.raises(ValueError, match="divide"):
-        pallas_blockmax(q, qs, jnp.asarray(packed), valid, 256, chunk_size=4096, interpret=True)
-
-
-def test_blockmax_rejects_chunk_not_block_multiple():
-    packed, q, qs, valid = _data()
-    with pytest.raises(ValueError, match="chunk_size by 128"):
-        pallas_blockmax(q, qs, jnp.asarray(packed), valid, 256, chunk_size=96, interpret=True)
-
-
-def test_packed_perm_rejects_permuted_and_misaligned():
-    packed, q, qs, valid = _data()
-    db = jnp.asarray(packed)
-    with pytest.raises(ValueError, match="packed_perm"):
-        pallas_blockmax(q, qs, db, valid, 256, chunk_size=4096, interpret=True,
-                        packed_perm=True, permuted=True, unpacked=True)
-    packed6, q6, qs6, valid6 = _data(lanes=6)
-    with pytest.raises(ValueError, match="packed_perm"):
-        pallas_blockmax(q6, qs6, jnp.asarray(packed6), valid6, 192, chunk_size=4096,
-                        interpret=True, packed_perm=True)
-
-
-def test_bitplane_rejects_bad_combos():
-    packed, q, qs, valid = _data()
-    db = jnp.asarray(packed)
-    for kw in ({"permuted": True, "unpacked": True}, {"packed_perm": True}):
-        with pytest.raises(ValueError, match="bitplane|permuted scan"):
-            pallas_blockmax(q, qs, db, valid, 256, chunk_size=4096, interpret=True,
-                            bitplane=True, **kw)
-    packed2, q2, qs2, valid2 = _data(lanes=2)
-    with pytest.raises(ValueError, match="bitplane"):
-        pallas_blockmax(q2, qs2, jnp.asarray(packed2), valid2, 64, chunk_size=4096,
-                        interpret=True, bitplane=True)
-
-
-def test_bitplane_single_plane_per_dot_matches():
-    packed, q, qs, valid = _data(seed=91)
-    db = jnp.asarray(packed)
-    bt = bit_transpose_packed(db)
-    ref, _ = pallas_blockmax_topk(q, qs, db, valid, 5, 256, chunk_size=4096, interpret=True,
-                                  db_bitplane=bt)
-    got, _ = pallas_blockmax_topk(q, qs, db, valid, 5, 256, chunk_size=4096, interpret=True,
-                                  db_bitplane=bt, planes_per_dot=1)
-    assert np.allclose(np.sort(np.asarray(got), 1), np.sort(np.asarray(ref), 1), atol=2e-3)
-
-
-def test_segmented_view_dots_padding_arms():
-    rng = np.random.default_rng(92)
-    n, nbits = 1024, 256
-    packed = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
-    view = jnp.asarray(packed).reshape(n * 8 // 128, 128)
-    q_d = jnp.asarray((unpack_pm1_np(packed[:2], nbits, np.float32) * 2 - 1).astype(np.int8))
-    blocks = jnp.asarray(rng.integers(0, n // 128, (2, 4)), jnp.int32)
-    budget_one = 2 * nbits * 4 * 128  # seg_blocks == 1
-    exact4 = segmented_view_dots(q_d, view, blocks, nbits, seg_budget_bytes=budget_one)
-    whole = segmented_view_dots(q_d, view, blocks, nbits)  # kk <= seg_blocks arm
-    assert np.allclose(np.asarray(exact4), np.asarray(whole), atol=1e-3)
-    blocks3 = blocks[:, :3]
-    budget_two = 2 * budget_one  # seg_blocks == 2, kk=3 -> padded arm
-    padded = segmented_view_dots(q_d, view, blocks3, nbits, seg_budget_bytes=budget_two)
-    assert np.allclose(np.asarray(padded), np.asarray(whole)[:, : 3 * 128], atol=1e-3)
-
-
-def test_bit_transpose_exact_step_multiple():
-    """n equal to the full 512Ki step: the single-shot arm at max step."""
-    rng = np.random.default_rng(93)
-    n = 1 << 19
-    packed = rng.integers(0, 2**32, (n, 4), dtype=np.uint32)  # 128-bit rows
-    out = bit_transpose_packed(jnp.asarray(packed))
-    assert out.shape == (n * 4 // 128, 128)
-
-
 # ------------------------------------------------- device_index save arms
 
 
@@ -176,25 +81,6 @@ def test_unconfirmed_seal_reemitted_while_first_save_inflight(tmp_path, rng, mon
     idx2.close()
 
 
-def test_perm_rewrite_jit_cache_hits_twice(tmp_path, monkeypatch):
-    """Two incremental appends to a perm-twin partition: the rewrite helper's
-    jit-build gate takes both arms."""
-    rng = np.random.default_rng(95)
-    monkeypatch.setenv("ISCC_SEARCH_UNPACKED_MAX_BYTES", str(10 * 16384 * 64))
-    idx = DeviceNphdIndex(tmp_path / "i", scan_kernel="pallas")
-    packed = rng.integers(0, 2**32, (16384, 2), dtype=np.uint32)
-    keys = np.zeros((16384, idx.key_bytes), np.uint8)
-    keys[:, :8] = np.frombuffer(np.arange(16384, dtype=">u8").tobytes(), np.uint8).reshape(-1, 8)
-    idx.add_packed(keys, packed, 2)
-    assert idx._sync_device()[2].perm_dev is not None
-    for tag in (7, 9):
-        extra_keys = np.full((4, idx.key_bytes), tag, np.uint8)
-        extra_keys[:, 0] = np.arange(4)
-        idx.add_packed(extra_keys, rng.integers(0, 2**32, (4, 2), dtype=np.uint32), 2)
-        idx._sync_device()
-    idx.close()
-
-
 def test_mesh_with_recall_target_routes_to_pm1(tmp_path, monkeypatch):
     from iscc_search_tpu.parallel import make_mesh
 
@@ -204,9 +90,7 @@ def test_mesh_with_recall_target_routes_to_pm1(tmp_path, monkeypatch):
     packed = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
     keys = np.zeros((n, 8), np.uint8)
     keys[:, :8] = np.frombuffer(np.arange(n, dtype=">u8").tobytes(), np.uint8).reshape(-1, 8)
-    monkeypatch.setenv("ISCC_SEARCH_UNPACKED_MAX_BYTES", str(10 * n * 256))
-    idx = DeviceNphdIndex(tmp_path / "i", mesh=mesh, scan_kernel="pallas",
-                          recall_target=0.99, shard_size=1 << 30)
+    idx = DeviceNphdIndex(tmp_path / "i", mesh=mesh, recall_target=0.99, shard_size=1 << 30)
     idx.add_packed(keys, packed, 8)
     res = idx.search([packed[3].astype(">u4").tobytes()], 3)
     assert res[0][1][0] == pytest.approx(1.0, abs=1e-3)

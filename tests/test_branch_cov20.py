@@ -1,38 +1,18 @@
-"""Branch coverage round 20: the last decidable arms — a successful direct
-pallas_blockmax call, listener-close failure during server_close, normal-exit
-scale-out finally, mesh twin budgets measured per shard, and the remaining
-backend query-shape arms."""
+"""Branch coverage round 20: the last decidable arms — listener-close failure
+during server_close, normal-exit scale-out finally, and the remaining backend
+query-shape arms."""
 
 import socket
 import threading
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from iscc_search_tpu import codec as ic
 from iscc_search_tpu.engine import DeviceNphdIndex
-from iscc_search_tpu.ops.pallas_scan import pallas_blockmax
-from iscc_search_tpu.ops.pm1_scan import prepare_queries
 from iscc_search_tpu.schema import IsccEntry, IsccQuery
 
 from tests.conftest import make_iscc_id
-
-
-def test_pallas_blockmax_direct_success():
-    """The phase-1-only entry point end-to-end (not just its raise arms)."""
-    rng = np.random.default_rng(100)
-    n = 4096
-    packed = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
-    q_pm1, q_scale = prepare_queries(packed[:2], np.full(2, 8, np.int32), 256)
-    bm = pallas_blockmax(
-        jnp.asarray(q_pm1), jnp.asarray(q_scale), jnp.asarray(packed),
-        jnp.asarray(np.ones(n, bool)), 256, chunk_size=4096, interpret=True,
-    )
-    bm = np.asarray(bm)
-    assert bm.shape == (2, n // 128)
-    # each query's own block must contain a 1.0 maximum
-    assert bm[0].max() == pytest.approx(1.0, abs=1e-3)
 
 
 def test_pooled_server_close_with_failing_listener():
@@ -94,62 +74,6 @@ def test_add_packed_after_remove_keeps_key_map(tmp_path):
     keys[0, -1] = 9
     idx.add_packed(keys, rng.integers(0, 2**32, (1, 8), dtype=np.uint32), 8)
     assert len(idx) == 2  # 1 tombstoned + 2 live... live count excludes removed
-    idx.close()
-
-
-def test_mesh_per_shard_budget_tiers(tmp_path, monkeypatch):
-    """Budgets measured against PER-SHARD bytes: perm-only and twin-less."""
-    from iscc_search_tpu.parallel import make_mesh
-
-    rng = np.random.default_rng(102)
-    mesh = make_mesh(8)
-    n = 8 * 4096
-    packed = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
-    keys = np.zeros((n, 8), np.uint8)
-    keys[:, :8] = np.frombuffer(np.arange(n, dtype=">u8").tobytes(), np.uint8).reshape(-1, 8)
-
-    # discover the actual device capacity (growth may overallocate)
-    monkeypatch.setenv("ISCC_SEARCH_UNPACKED_MAX_BYTES", "1000")
-    probe = DeviceNphdIndex(tmp_path / "probe", mesh=mesh, scan_kernel="pallas", shard_size=1 << 30)
-    probe.add_packed(keys, packed, 8)
-    cap = probe._sync_device()[8].cap
-    probe.close()
-    per_shard_bytes = cap // 8 * 256
-
-    monkeypatch.setenv("ISCC_SEARCH_UNPACKED_MAX_BYTES", str(int(per_shard_bytes * 1.5)))
-    idx = DeviceNphdIndex(tmp_path / "perm_only", mesh=mesh, scan_kernel="pallas", shard_size=1 << 30)
-    idx.add_packed(keys, packed, 8)
-    part = idx._sync_device()[8]
-    assert part.unpacked_dev is None and part.perm_dev is not None
-    res = idx.search([packed[5].astype(">u4").tobytes()], 3)
-    assert res[0][1][0] == pytest.approx(1.0, abs=1e-3)
-    idx.close()
-
-    monkeypatch.setenv("ISCC_SEARCH_UNPACKED_MAX_BYTES", "1000")
-    idx2 = DeviceNphdIndex(tmp_path / "no_twins", mesh=mesh, scan_kernel="pallas", shard_size=1 << 30)
-    idx2.add_packed(keys, packed, 8)
-    part2 = idx2._sync_device()[8]
-    assert part2.unpacked_dev is None and part2.perm_dev is None
-    res2 = idx2.search([packed[5].astype(">u4").tobytes()], 3)  # pm1 fallback
-    assert res2[0][1][0] == pytest.approx(1.0, abs=1e-3)
-    idx2.close()
-
-
-def test_mesh_large_per_shard_chunk_arm(tmp_path, monkeypatch):
-    """per_shard >= the Mosaic minimum chunk: the other pchunk ternary arm."""
-    from iscc_search_tpu.parallel import make_mesh
-
-    rng = np.random.default_rng(103)
-    mesh = make_mesh(8)
-    n = 8 * 16384
-    packed = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
-    keys = np.zeros((n, 8), np.uint8)
-    keys[:, :8] = np.frombuffer(np.arange(n, dtype=">u8").tobytes(), np.uint8).reshape(-1, 8)
-    monkeypatch.setenv("ISCC_SEARCH_UNPACKED_MAX_BYTES", str(10 * 16384 * 256))
-    idx = DeviceNphdIndex(tmp_path / "i", mesh=mesh, scan_kernel="pallas", shard_size=1 << 30)
-    idx.add_packed(keys, packed, 8)
-    res = idx.search([packed[11].astype(">u4").tobytes()], 3)
-    assert res[0][1][0] == pytest.approx(1.0, abs=1e-3)
     idx.close()
 
 

@@ -1,5 +1,4 @@
-"""Branch coverage round 22: the round-4 residual arms — pallas argument
-contract (every operand, both ways, via the extracted validator), simprint
+"""Branch coverage round 22: the round-4 residual arms — simprint
 batched-search degenerate inputs and scoring dedup, store session/bulk-insert
 arms, accept-loop graceful exits, shed-drain peer states, and device-index
 keymap/chunk-growth arms."""
@@ -15,7 +14,6 @@ import pytest
 from iscc_search_tpu.engine.device_index import DeviceHammingIndex, DeviceNphdIndex
 from iscc_search_tpu.engine.simprint import SimprintEngine
 from iscc_search_tpu.engine import simprint_ops as sp_ops
-from iscc_search_tpu.ops.pallas_scan import _validate_blockmax
 from iscc_search_tpu.store import HostStore
 
 
@@ -29,59 +27,6 @@ def store(tmp_path):
 @pytest.fixture
 def rng():
     return np.random.default_rng(22)
-
-
-# ---------------------------------------------------------------- pallas args
-
-
-def test_blockmax_validator_every_arm():
-    """Every operand of the four contract conditions, both outcomes — the
-    TPU-only Mosaic constraint (interpret=False) included, which no kernel
-    test can reach on the CPU mesh."""
-    ok = dict(interpret=True, unpacked=False, permuted=False, packed_perm=False, bitplane=False, nbits=256)
-
-    def check(n=32768, chunk_size=16384, **kw):
-        _validate_blockmax(n, chunk_size, **{**ok, **kw})
-
-    check()  # all-pass baseline
-    with pytest.raises(ValueError, match="divide"):
-        check(n=33000)  # n % chunk_size truthy
-    with pytest.raises(ValueError, match="divide"):
-        check(n=31744, chunk_size=992)  # n % chunk ok, chunk % 128 truthy
-    # Mosaic minimum (TPU mode): short-circuits on interpret; < 16384 needs
-    # chunk == n to pass; >= 16384 always passes.
-    check(n=4096, chunk_size=4096)  # interpret=True short-circuit
-    with pytest.raises(ValueError, match="16384"):
-        check(n=8192, chunk_size=4096, interpret=False)  # small chunk, != n
-    check(n=4096, chunk_size=4096, interpret=False)  # small chunk == n: whole array
-    check(n=32768, chunk_size=16384, interpret=False)  # chunk >= 16384
-    # permuted: needs unpacked + chunk % 4096 == 0
-    with pytest.raises(ValueError, match="permuted"):
-        check(permuted=True)  # not unpacked
-    with pytest.raises(ValueError, match="permuted"):
-        check(n=25600, chunk_size=12800, permuted=True, unpacked=True)  # chunk % 4096
-    check(permuted=True, unpacked=True)  # valid permuted
-    # packed_perm: packed layout, chunk % 4096 == 0, lanes | 128
-    # (permuted-combo passes unpacked too so the earlier permuted contract
-    # does not fire first)
-    for bad in (dict(unpacked=True), dict(permuted=True, unpacked=True)):
-        with pytest.raises(ValueError, match="packed_perm"):
-            check(packed_perm=True, **bad)
-    with pytest.raises(ValueError, match="packed_perm"):
-        check(n=25600, chunk_size=12800, packed_perm=True)  # chunk % 4096
-    with pytest.raises(ValueError, match="packed_perm"):
-        check(packed_perm=True, nbits=96)  # 128 % (96//32) == 2: lanes don't divide
-    check(packed_perm=True)  # valid
-    # bitplane: packed, no other twin, chunk % 4096 == 0, nbits in (128, 256)
-    for bad in (dict(unpacked=True), dict(permuted=True, unpacked=True), dict(packed_perm=True)):
-        with pytest.raises(ValueError, match="bitplane"):
-            check(bitplane=True, **bad)
-    with pytest.raises(ValueError, match="bitplane"):
-        check(n=25600, chunk_size=12800, bitplane=True)  # chunk % 4096
-    with pytest.raises(ValueError, match="bitplane"):
-        check(bitplane=True, nbits=192)
-    check(bitplane=True)  # valid 256
-    check(bitplane=True, nbits=128)  # valid 128
 
 
 # ------------------------------------------------------------------- simprint

@@ -1,6 +1,6 @@
 """Branch coverage round 23: the round-5 residual arms — double-checked-lock
 inner arms (keymap, simprint batcher), materialized-keymap bulk appends, mesh
-large-count chunk growth and the XLA route past the Pallas chunk bound, save
+large-count chunk growth past the default chunk, save
 pipeline wait loops driven by a blocked writer, order-independent simprint
 best-per-asset scoring, store in-flight gate nesting and close-drain, bulk
 dupsort validation, accept/serve loop stop-flag exits, blocking-shed drain
@@ -132,11 +132,10 @@ def test_mesh_count_above_per_shard_chunk(tmp_path, rng, monkeypatch):
 
     mesh = make_mesh(8)
     n = 8 * 4096
-    monkeypatch.setenv("ISCC_SEARCH_UNPACKED_MAX_BYTES", str(4 * n * 256))
     packed = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
     keys = np.zeros((n, 8), np.uint8)
     keys[:, :8] = np.frombuffer(np.arange(n, dtype=">u8").tobytes(), np.uint8).reshape(-1, 8)
-    idx = DeviceNphdIndex(tmp_path / "i", mesh=mesh, scan_kernel="pallas", shard_size=1 << 30)
+    idx = DeviceNphdIndex(tmp_path / "i", mesh=mesh, shard_size=1 << 30)
     idx.add_packed(keys, packed, 8)
     cap = idx._sync_device()[8].cap
     count = cap // 8 + 7  # k = pow2ceil(count) > cap // n_shards
@@ -148,21 +147,20 @@ def test_mesh_count_above_per_shard_chunk(tmp_path, rng, monkeypatch):
 
 
 def test_mesh_chunk_past_pallas_bound_routes_xla(tmp_path, rng, monkeypatch):
-    """A grown per-shard chunk past the Pallas-friendly size routes the mesh
-    sweep to the sharded XLA scan (pallas_ok False arm)."""
+    """A count past the default chunk grows the per-shard scan chunk beyond
+    it, and the mesh sweep still returns every requested row in order."""
     from iscc_search_tpu.engine import device_index as di
     from iscc_search_tpu.parallel import make_mesh
 
     mesh = make_mesh(8)
     n = 8 * 65536
-    monkeypatch.setenv("ISCC_SEARCH_UNPACKED_MAX_BYTES", "1000")  # no twins
     packed = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
     keys = np.zeros((n, 8), np.uint8)
     keys[:, :8] = np.frombuffer(np.arange(n, dtype=">u8").tobytes(), np.uint8).reshape(-1, 8)
-    idx = DeviceNphdIndex(tmp_path / "i", mesh=mesh, scan_kernel="pallas", shard_size=1 << 30)
+    idx = DeviceNphdIndex(tmp_path / "i", mesh=mesh, shard_size=1 << 30)
     idx.add_packed(keys, packed, 8)
     cap = idx._sync_device()[8].cap
-    count = di._DEFAULT_CHUNK_ROWS + 1  # grown chunk = pow2ceil(count) > Pallas bound
+    count = di._DEFAULT_CHUNK_ROWS + 1  # grown chunk = pow2ceil(count) > default chunk
     assert cap // 8 > di._DEFAULT_CHUNK_ROWS
     res = idx.search([packed[42].astype(">u4").tobytes()], count)
     assert res[0][1][0] == pytest.approx(1.0, abs=1e-3)

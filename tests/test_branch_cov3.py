@@ -58,45 +58,6 @@ def test_numpy_vector_accepted(tmp_path):
     idx.close()
 
 
-def test_scan_kernel_explicit_xla(tmp_path):
-    """scan_kernel='xla' disables pallas explicitly (1002 True)."""
-    rng = np.random.default_rng(3)
-    idx = DeviceNphdIndex(tmp_path / "d", scan_kernel="xla")
-    vs = [vec(rng) for _ in range(32)]
-    idx.add(list(range(32)), vs)
-    ((keys, scores),) = idx.search([vs[5]], 1)
-    assert int.from_bytes(keys[0].tobytes(), "big") == 5
-    idx.close()
-
-
-@pytest.mark.parametrize(
-    "budget_rows,expect_unpacked,expect_perm",
-    [
-        (3.0, True, True),   # both twins fit (958 True via 2x budget)
-        (1.5, False, True),  # perm twin only (958 False, 960 True)
-        (0.5, False, False), # no twin fits (945 False)
-    ],
-)
-def test_layout_budget_routing(tmp_path, monkeypatch, budget_rows, expect_unpacked, expect_perm):
-    """Single-device ±1 twin selection under the HBM budget
-    (device_index.py:942-961), then an exact search on the chosen layout."""
-    rng = np.random.default_rng(4)
-    n = 16384  # == _PALLAS_MIN_CHUNK so cap clears the Mosaic floor
-    layout_bytes = n * 2 * 32  # cap * lanes * 32
-    monkeypatch.setattr(di, "_unpacked_budget_bytes", lambda: int(budget_rows * layout_bytes))
-    idx = DeviceNphdIndex(tmp_path / "d", scan_kernel="pallas")
-    vs = [vec(rng) for _ in range(n)]
-    idx.add(list(range(n)), vs)
-    parts = idx._sync_device()
-    part = parts[2]
-    assert (part.unpacked_dev is not None) == expect_unpacked
-    assert (part.perm_dev is not None) == expect_perm
-    ((keys, scores),) = idx.search([vs[123]], 1)
-    assert int.from_bytes(keys[0].tobytes(), "big") == 123
-    assert scores[0] == pytest.approx(1.0)
-    idx.close()
-
-
 def test_save_compacts_when_tombstones_dominate(tmp_path):
     """save() compacts past 50% tombstones above the row floor (587 True),
     and post-compaction rows < synced_rows forces a full device rebuild
@@ -309,63 +270,3 @@ def test_build_library_paths(tmp_path, monkeypatch):
     assert calls["n"] == 1  # inner re-check returned before make
 
 
-def test_bitplane_layout_beyond_budget(tmp_path, monkeypatch):
-    """256-bit partitions past the int8 budget build the bitplane twin
-    (2x packed bytes) and search exactly through the bitplane Pallas path,
-    including after an append (group-local twin rewrite)."""
-    rng = np.random.default_rng(40)
-    n = 16384
-    monkeypatch.setattr(di, "_unpacked_budget_bytes", lambda: 1)  # no int8 twin fits
-    idx = DeviceNphdIndex(tmp_path / "d", scan_kernel="pallas")
-    vs = [vec(rng, 32) for _ in range(n)]
-    idx.add(list(range(n)), vs)
-    part = idx._sync_device()[8]
-    assert part.unpacked_dev is None and part.perm_dev is None
-    assert part.bitplane_dev is not None
-    assert part.bitplane_dev.shape == (part.cap // 16, 128)
-    ((keys, scores),) = idx.search([vs[777]], 1)
-    assert int.from_bytes(keys[0].tobytes(), "big") == 777
-    assert scores[0] == pytest.approx(1.0)
-    # Append within capacity: the twin rewrites only the touched groups
-    extra = [vec(rng, 32) for _ in range(64)]
-    idx.add(list(range(n, n + 64)), extra)
-    ((keys, scores),) = idx.search([extra[5]], 1)
-    assert int.from_bytes(keys[0].tobytes(), "big") == n + 5
-    assert scores[0] == pytest.approx(1.0)
-    # Old rows still found after the rewrite
-    ((keys, _),) = idx.search([vs[3]], 1)
-    assert int.from_bytes(keys[0].tobytes(), "big") == 3
-    idx.close()
-
-
-def test_bitplane_layout_128bit_beyond_budget(tmp_path, monkeypatch):
-    """128-bit (lanes=4) partitions past the int8 budget — the SIMPRINT
-    width of BASELINE config 4 — build the generalized bitplane twin at
-    (cap*lanes//128, 128) and search exactly through the bitplane Pallas
-    path, including after an append (group-local twin rewrite)."""
-    from iscc_search_tpu.engine.device_index import DeviceHammingIndex
-
-    rng = np.random.default_rng(41)
-    n = 16384
-    monkeypatch.setattr(di, "_unpacked_budget_bytes", lambda: 1)  # no int8 twin fits
-    idx = DeviceHammingIndex(tmp_path / "h", ndim=128, scan_kernel="pallas")
-    keys = [rng.integers(0, 256, 16, dtype=np.uint8).tobytes() for _ in range(n + 64)]
-    vs = [vec(rng, 16) for _ in range(n + 64)]
-    idx.add(keys[:n], vs[:n])
-    part = idx._sync_device()[4]
-    assert part.unpacked_dev is None and part.perm_dev is None
-    assert part.bitplane_dev is not None
-    assert part.bitplane_dev.shape == (part.cap * 4 // 128, 128)
-    assert part.view_dev is not None
-    ((got_keys, scores),) = idx.search([vs[777]], 1)
-    assert got_keys[0].tobytes() == keys[777]
-    assert scores[0] == pytest.approx(1.0)
-    # Append within capacity: the twin rewrites only the touched groups
-    idx.add(keys[n:], vs[n:])
-    ((got_keys, scores),) = idx.search([vs[n + 5]], 1)
-    assert got_keys[0].tobytes() == keys[n + 5]
-    assert scores[0] == pytest.approx(1.0)
-    # Old rows still found after the rewrite
-    ((got_keys, _),) = idx.search([vs[3]], 1)
-    assert got_keys[0].tobytes() == keys[3]
-    idx.close()

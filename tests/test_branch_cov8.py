@@ -1,5 +1,5 @@
 """Branch-coverage round 8: aggregator entry/cursor edges, CLI error paths,
-server edge responses, TPU-manager resilience, distributed init."""
+server edge responses, device-backend manager resilience, distributed init."""
 
 import hashlib
 import json
@@ -274,7 +274,7 @@ def test_static_unknown_file_404(client):
     assert client.get("/static/nosuchfile.js").status_code == 404
 
 
-# ------------------------------------------------------------ TPU manager
+# --------------------------------------------------------- device manager
 
 
 def test_manager_list_skips_corrupt_index_dir(tmp_path, caplog):

@@ -3,7 +3,6 @@ helpers, topk metric validation, memory-backend delete-during-query race."""
 
 import base64
 
-import numpy as np
 import pytest
 
 from iscc_search_tpu import codec as ic
@@ -207,36 +206,6 @@ def test_parse_simprints_skips_feature_with_empty_simprints():
     )
     assert out is None
 
-
-# ------------------------------------------------------------- pallas ops
-
-
-def test_permute_packed_rows_rejects_bad_shapes():
-    from iscc_search_tpu.ops.pallas_scan import PERM_GROUP, permute_packed_rows
-
-    good_n = PERM_GROUP
-    with pytest.raises(ValueError, match="perm-packed layout"):
-        permute_packed_rows(np.zeros((good_n, 8), np.uint32), lanes=7)  # 128 % 7
-    with pytest.raises(ValueError, match="perm-packed layout"):
-        permute_packed_rows(np.zeros((good_n + 1, 8), np.uint32), lanes=8)
-
-
-def test_bit_transpose_packed_small_n_single_step():
-    """n <= step takes the direct path (no lax.map chunking); the big-n
-    chunked path must produce the identical layout."""
-    import jax.numpy as jnp
-
-    from iscc_search_tpu.ops.pallas_scan import PERM_GROUP, bit_transpose_packed
-
-    rng = np.random.default_rng(7)
-    small = rng.integers(0, 2**32, (PERM_GROUP, 8), dtype=np.uint32)
-    out_small = np.asarray(bit_transpose_packed(jnp.asarray(small)))
-    assert out_small.shape == (PERM_GROUP // 16, 128)
-    # stacking the same group twice must transpose each group independently
-    big = np.concatenate([small, small], axis=0)
-    out_big = np.asarray(bit_transpose_packed(jnp.asarray(big)))
-    np.testing.assert_array_equal(out_big[: PERM_GROUP // 16], out_small)
-    np.testing.assert_array_equal(out_big[PERM_GROUP // 16 :], out_small)
 
 
 # ---------------------------------------------------------------- kv index

@@ -50,7 +50,6 @@ class TestCapRows:
         for n in (70_000, 131_073, 1_000_001):
             cap = _cap_rows(n)
             assert cap % 32768 == 0  # scan chunk
-            assert cap % 4096 == 0  # permute/bitplane group
             assert cap % 128 == 0  # block
 
 

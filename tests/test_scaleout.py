@@ -483,7 +483,7 @@ def test_ping_times_out_without_engine(tmp_path):
     assert time.monotonic() - t0 < 5
 
 
-SCALEOUT_TPU_MAIN = """
+SCALEOUT_DEVICE_MAIN = """
 import sys
 from iscc_search_tpu.options import SearchOptions
 from iscc_search_tpu.server.scaleout import serve_scaleout
@@ -504,7 +504,7 @@ def test_scaleout_device_backend_end_to_end(tmp_path, entry_factory):
     searches flow worker -> RPC -> engine -> batcher -> scan."""
     port = _free_port()
     script = tmp_path / "main.py"
-    script.write_text(SCALEOUT_TPU_MAIN)
+    script.write_text(SCALEOUT_DEVICE_MAIN)
     repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(
         os.environ,

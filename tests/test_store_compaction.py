@@ -3,7 +3,7 @@ Incremental-compaction suite for the native store (store.cpp ts_compact):
 log rotation, sliced snapshot streaming under concurrent traffic, rotated-log
 (store.log.0) crash-residue recovery, and the Python background trigger.
 The design replaces the full-lock compaction that stalled a 1M-asset
-aggregator ingest for 15.5s (benchmarks/AGGREGATOR_INGEST.json).
+aggregator ingest for 15.5s (measured by benchmarks/aggregator_ingest.py).
 """
 
 import shutil
